@@ -1,4 +1,4 @@
-"""mvrecon_tpu — TPU-native multi-view 3D reconstruction framework.
+"""mvrecon_tpu — multi-view 3D reconstruction framework on JAX/XLA.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``takah29/3d-reconstruction-from-multi-view-exp`` (Kanatani–Sugaya–Kanazawa,
@@ -6,7 +6,7 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 perspective camera self-calibration with Euclidean/metric upgrading, and
 Levenberg–Marquardt bundle adjustment with camera/point Schur elimination —
 all expressed as jitted XLA programs with batched (vmap) and sharded
-(shard_map/pjit) execution over TPU meshes.
+(shard_map/pjit) execution over device meshes.
 
 Public API (reference-compatible module names, see each module's docstring
 for the file:line parity citations into the reference):
@@ -19,7 +19,7 @@ for the file:line parity citations into the reference):
 - ``mvrecon_tpu.minimum_spanning_tree``
 - ``mvrecon_tpu.visualization``
 
-TPU-first core lives in ``ops/`` (kernels), ``models/`` (pipelines),
+The core lives in ``ops/`` (kernels), ``models/`` (pipelines),
 ``geometry/`` (camera & scene synthesis), ``parallel/`` (mesh/sharding),
 ``runtime/`` (config, logging, checkpointing, native host runtime).
 """

@@ -2,7 +2,7 @@
 
 API parity with ``lib/affine_camera_calibration.py``: same entry points and
 signatures; accepts the reference's list-of-(P, 2)-arrays observations (or a
-dense (F, P, 2) array, the TPU-native form). Returns (S (P, 3), R (F, 3, 3)).
+dense (F, P, 2) array, the framework's native form). Returns (S (P, 3), R (F, 3, 3)).
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
 """Global numerics / execution configuration.
 
-The reference implementation is float64 NumPy end-to-end. TPUs natively
-compute in f32/bf16; float64 is available on CPU (and emulated on TPU) only
-when x64 is enabled. The framework is dtype-polymorphic: every public entry
-point derives its working dtype from its inputs, so
+The reference implementation is float64 NumPy end-to-end. GPUs compute
+fastest in f32 and below; float64 is available only when x64 is enabled
+(and runs at a small fraction of the f32 rate on the GPU). The framework
+is dtype-polymorphic: every public entry point derives its working dtype
+from its inputs, so
 
 - parity mode: feed float64 arrays (with ``JAX_ENABLE_X64=1``) and get the
   reference's float64 semantics (used by the test suite on CPU);
-- fast mode: feed float32 arrays and run TPU-native.
+- fast mode: feed float32 arrays (the GPU path).
 
 ``default_dtype()`` is what synthetic-data helpers use when the caller does
 not specify one.
@@ -22,16 +23,15 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
-# Matmul/einsum precision for numerically sensitive contractions. On TPU,
-# f32 matmuls default to bf16 passes; HIGHEST forces full f32 (6-pass)
+# Matmul/einsum precision for numerically sensitive contractions. On the
+# GPU an f32 contraction at DEFAULT precision runs in TF32 on the tensor
+# cores (~3 significant digits per operand); HIGHEST forces full FP32,
 # which the small-but-ill-conditioned normal equations here need.
 #
-# Set MVRECON_PRECISION=default (before import) to use the hardware-native
-# fast path (bf16x6->f32 off, single-pass) for the large-scale regime — LM's
-# accept/retry protocol tolerates an approximate Gauss-Newton system, so
-# this trades ~0 accuracy of the *converged* result for ~6x matmul
-# throughput on TPU. Parity tests always run f64 on CPU where this constant
-# is a no-op.
+# Set MVRECON_PRECISION=default (before import) to let the heavy matmuls
+# run in TF32 — LM's accept/retry protocol tolerates an approximate
+# Gauss-Newton system, at the price of more retries. Parity tests always
+# run f64 on CPU where this constant is a no-op.
 _PRECISION_MODES = {
     "highest": jax.lax.Precision.HIGHEST,
     "default": jax.lax.Precision.DEFAULT,
@@ -40,13 +40,14 @@ HIGHEST = _PRECISION_MODES[os.environ.get("MVRECON_PRECISION", "highest").lower(
 
 # Full-precision constant for O(F)/O(P)-sized state transforms (gauge
 # normalization, rotation composition): these are too small to matter for
-# throughput but a bf16 pass there corrupts LM trial states (rejected-step
-# storms), so they stay at HIGHEST even under MVRECON_PRECISION=default.
+# throughput but a reduced-precision pass there corrupts LM trial states
+# (rejected-step storms), so they stay at HIGHEST even under
+# MVRECON_PRECISION=default.
 STATE_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def default_dtype() -> jnp.dtype:
-    """float64 when x64 is enabled (parity/CPU), else float32 (TPU)."""
+    """float64 when x64 is enabled (parity/CPU), else float32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -111,7 +112,7 @@ class LMConfig:
     # real arithmetic; in f32 it equalizes the f/u/t/omega column scales
     # (which differ by orders of magnitude), reducing rounding in the
     # factorization - a candidate lever on the LM retry count at the
-    # 100k x 1000 north star (VERDICT r3 #4). Chunked core only.
+    # 100k x 1000 north star. Chunked core only.
     jacobi_scaling: bool = False
 
     @property

@@ -2,7 +2,7 @@
 paraperspective metric upgrades).
 
 Capability parity: reference ``lib/affine_camera_calibration.py`` — same
-math, TPU-first shape discipline:
+math, accelerator-first shape discipline:
 
 - observations are a dense (F, P, 2) array (the reference passes a Python
   list of (P, 2) arrays, ``affine_camera_calibration.py:224-240``);
@@ -257,7 +257,7 @@ def affine_self_calibration_full(
     in-graph ``ok`` flag. The reference fails by *crashing* inside
     ``np.linalg.cholesky`` when the metric matrix T is not positive
     definite under noise (``affine_camera_calibration.py:49,127,214``);
-    on TPU that failure mode is NaN propagation, surfaced here as a status
+    on the device that failure mode is NaN propagation, surfaced here as a status
     flag (SURVEY.md §5, sanitizers row)."""
     s, r = affine_self_calibration(x, model=model, f=f)
     ok = jnp.isfinite(s).all() & jnp.isfinite(r).all()

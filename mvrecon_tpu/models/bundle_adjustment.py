@@ -7,7 +7,7 @@ params), with gauge fixing (camera-0 pose + one baseline component = 7 DoF,
 ``:62-72``), analytic first/second derivatives (``:309-427``), and the
 point-block Schur complement (``:118-152``).
 
-TPU-first re-design (not a port):
+Accelerator-first re-design (not a port):
 
 - **Pure function over a PyTree state.** The reference's mutable class
   becomes ``lm_optimize(observations, init_state, config) -> result``; the
@@ -23,10 +23,10 @@ TPU-first re-design (not a port):
   are identity in the reduced camera matrix, their gradient entries zero),
   which yields the identical solution with XLA-friendly static shapes.
 
-- **MXU-shaped Schur.** Per-point 3x3 blocks are inverted in closed form
-  (adjugate, VPU); the reduced camera system
+- **Matmul-shaped Schur.** Per-point 3x3 blocks are inverted in closed form
+  (adjugate, elementwise); the reduced camera system
   ``A = blockdiag(G) - sum_p F_p^T E_p^-1 F_p`` is accumulated as one
-  (9F, 3P) x (3P, 9F) matmul — the MXU does the heavy lifting. A chunked
+  (9F, 3P) x (3P, 9F) matmul — one large GEMM does the heavy lifting. A chunked
   ``lax.scan`` variant (``models/bundle_adjustment_chunked.py``) streams
   points through HBM for the 100k-point regime.
 
@@ -105,8 +105,8 @@ def normalize_gauge(
     Returns the normalized (X, R, t) and the restore info
     (R0, t0, c0c1_len) (``:22-33``)."""
     ax = _axis_index(axis)
-    # All gauge transforms pin HIGHEST: on TPU a default-precision (bf16-
-    # pass) rotation of X perturbs points by ~1e-2 relative, visibly
+    # All gauge transforms pin HIGHEST: a default-precision (TF32 on the
+    # GPU) rotation of X perturbs points by ~1e-2 relative, visibly
     # bumping the reprojection error across a checkpoint/restore boundary.
     c0c1_len = jnp.abs(jnp.vdot(R[0, :, ax], t[1] - t[0], precision=STATE_HIGHEST))
 
@@ -730,7 +730,8 @@ def _psum(v: jax.Array, axis_name: str | None) -> jax.Array:
     This is the framework's entire "communication backend" for BA: per-point
     partial sums of camera-side quantities (d_F, matG, the Schur system, the
     scalar error) reduce over the ``points`` mesh axis; XLA lowers the psum
-    onto ICI. Everything else stays device-local.
+    to an all-reduce (NCCL between GPUs). Everything else stays
+    device-local.
     """
     return v if axis_name is None else jax.lax.psum(v, axis_name)
 
@@ -834,8 +835,7 @@ def _camera_side_solve(
     camera system (9F, 9F) the *larger* block). The camera block is
     9x9-block-diagonal, so its inverse is closed form (``inv9_spd`` —
     no custom call), and the dense solve shrinks from (9F, 9F) to
-    (3P, 3P): measured 31 -> ~17 ms per damped solve at
-    (64, P=200, F=100) on v5e. Same algebra as the reference's Schur
+    (3P, 3P). Same algebra as the reference's Schur
     complement (``bundle_adjustment.py:118-152``) from the other side;
     fp-identical gauge semantics (fixed params move exactly zero).
     """
@@ -899,11 +899,34 @@ def _damped_solve(
     if axis_name is None and npts * 3 < nf9:
         return _camera_side_solve(derivs, matEc, matGc, free)
 
+    a, b, einv = reduced_camera_system(derivs, matEc, matGc, free, axis_name)
+
+    # The damped, gauge-projected reduced system is SPD -> Cholesky.
+    delta_xi = jax.scipy.linalg.cho_solve(
+        jax.scipy.linalg.cho_factor(a), b
+    )
+    delta_xi = delta_xi * free  # exact zeros on fixed params
+
+    # Back-substitute point updates (reference ``:152``).
+    rhs = jnp.einsum("pxm,m->px", derivs.matF, delta_xi, precision=HIGHEST) + derivs.d_P
+    delta_x = -jnp.einsum("pxy,py->px", einv, rhs, precision=HIGHEST)
+    return delta_xi, delta_x
+
+
+def reduced_camera_system(
+    derivs: _Derivs, matEc: jax.Array, matGc: jax.Array, free: jax.Array,
+    axis_name: str | None = None,
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """Point-eliminated (Schur) camera system of the damped normal
+    equations (reference ``:118-150``): returns (A (9F, 9F) with the
+    gauge projection, b (9F,), Einv (P, 3, 3))."""
+    npts = derivs.matE.shape[0]
+    nf9 = derivs.matF.shape[2]
     einv = inv3x3(matEc)  # (P, 3, 3)
     einv_f = jnp.einsum("pxy,pym->pxm", einv, derivs.matF, precision=HIGHEST)  # (P, 3, 9F)
 
     # Reduced camera system: A = blockdiag(Gc) - sum_p F^T Einv F as one
-    # (9F, 3P) @ (3P, 9F) MXU matmul.
+    # (9F, 3P) @ (3P, 9F) matmul.
     fmat = derivs.matF.reshape(npts * 3, nf9)
     einv_fmat = einv_f.reshape(npts * 3, nf9)
     schur = _psum(jnp.einsum("km,kn->mn", fmat, einv_fmat, precision=HIGHEST), axis_name)
@@ -920,19 +943,7 @@ def _damped_solve(
     a = a * free2d + jnp.diag(1.0 - free)
 
     b = _psum(jnp.einsum("pxm,px->m", einv_f, derivs.d_P, precision=HIGHEST), axis_name)
-    b = b - derivs.d_F
-
-    # The damped, gauge-projected reduced system is SPD -> Cholesky
-    # (~4x faster than LU on TPU for the (9F, 9F) solve).
-    delta_xi = jax.scipy.linalg.cho_solve(
-        jax.scipy.linalg.cho_factor(a), b
-    )
-    delta_xi = delta_xi * free  # exact zeros on fixed params
-
-    # Back-substitute point updates (reference ``:152``).
-    rhs = jnp.einsum("pxm,m->px", derivs.matF, delta_xi, precision=HIGHEST) + derivs.d_P
-    delta_x = -jnp.einsum("pxy,py->px", einv, rhs, precision=HIGHEST)
-    return delta_xi, delta_x
+    return a, b - derivs.d_F, einv
 
 
 def _predicted_reduction(
@@ -1502,7 +1513,9 @@ def lm_optimize(
     into (``parallel/sharded_ba_2d.py``).
 
     Returns (final state, final error, final damping c, final nu,
-    n_iters, log).
+    n_iters, log): ``log`` always holds ``n_solver_retries`` (damped
+    solves over all iterations) and, with ``config.record_log``, the
+    per-iteration state trajectory.
     """
     solve = _damped_solve if solver is None else solver
     record = config.record_log
@@ -1548,10 +1561,9 @@ def lm_optimize(
                 c_next = jnp.where(accepted, c_cur * shrink, c_cur * nu_cur)
                 # never-accepting storms grow c super-exponentially
                 # (c *= nu, nu *= 2): unclamped it hits f32 Inf after
-                # ~17 rejections and the Inf/NaN-damped systems at BAL
-                # scale crash the TPU worker (round-5 root cause of the
-                # bal_large_sparse kernel fault). 1e25 already dominates
-                # any Hessian scale; 1e12 keeps c * nu finite in f32.
+                # ~17 rejections, and Inf/NaN-damped systems poison every
+                # later solve. 1e25 already dominates any Hessian scale;
+                # 1e12 keeps c * nu finite in f32.
                 c_next = jnp.minimum(c_next, jnp.asarray(1e25, c_next.dtype))
                 nu_next = jnp.where(accepted, jnp.full_like(nu_cur, 2.0),
                                     jnp.minimum(nu_cur * 2.0,
@@ -1562,7 +1574,7 @@ def lm_optimize(
             return c_next, nu_next, e_trial, accepted, tries + 1, trial
 
         dummy = jax.tree.map(jnp.zeros_like, state_c)
-        c_out, nu_out, e_new, accepted, _, trial = jax.lax.while_loop(
+        c_out, nu_out, e_new, accepted, tries, trial = jax.lax.while_loop(
             cond, body,
             (c, nu, jnp.asarray(jnp.inf, x.dtype), jnp.asarray(False), 0, dummy),
         )
@@ -1575,10 +1587,10 @@ def lm_optimize(
         )
         trial = keep(trial, state_c)
         e_new = jnp.where(accepted, e_new, e_prev)
-        return c_out, nu_out, e_new, trial
+        return c_out, nu_out, e_new, trial, tries
 
     def cond(carry):
-        _, _, _, _, count, done, _ = carry
+        _, _, _, _, count, done, _, _ = carry
         return (~done) & (count < max_iter)
 
     robust_cfg = resolve_robust(config.robust)
@@ -1586,7 +1598,7 @@ def lm_optimize(
     robust_kind = robust_cfg or "huber"
 
     def body(carry):
-        state_c, e_prev, c, nu, count, _, log = carry
+        state_c, e_prev, c, nu, count, _, log, retries = carry
         if robust:
             # IRLS: reweight from the current residuals; the accept test
             # and the stopping delta both use this iteration's weights.
@@ -1596,7 +1608,7 @@ def lm_optimize(
             vis_it = vis
         derivs, e_prev_w = _compute_derivs(state_c, x, vis_it, free, f0, axis_name, dist, model)
         e_base = e_prev_w if robust else e_prev
-        c_new, nu_new, e_new, trial = inner(state_c, derivs, e_base, c, nu, vis_it)
+        c_new, nu_new, e_new, trial, tries = inner(state_c, derivs, e_base, c, nu, vis_it)
         delta = jnp.abs(e_new - e_base)
         done = delta <= config.delta_tol
         if record:
@@ -1609,14 +1621,18 @@ def lm_optimize(
         # Accepted step divides the damping (reference ``:195``); in
         # nielsen mode the gain-ratio shrink already happened in inner().
         c_out = c_new if nielsen else c_new / config.divisor
-        return trial, e_new, c_out, nu_new, count + 1, done, log
+        return trial, e_new, c_out, nu_new, count + 1, done, log, retries + tries
 
     c0 = jnp.asarray(config.init_damping, x.dtype) if init_c is None else init_c
     nu0 = jnp.asarray(2.0, x.dtype) if init_nu is None else init_nu
-    final_state, e_final, c_final, nu_final, n_iter, _, log = jax.lax.while_loop(
-        cond, body, (state0, e0, c0, nu0, jnp.asarray(0), jnp.asarray(False), log0)
+    (final_state, e_final, c_final, nu_final, n_iter, _, log,
+     retries) = jax.lax.while_loop(
+        cond, body,
+        (state0, e0, c0, nu0, jnp.asarray(0), jnp.asarray(False), log0,
+         jnp.asarray(0)),
     )
-    return final_state, e_final, c_final, nu_final, n_iter, (log if record else None)
+    return (final_state, e_final, c_final, nu_final, n_iter,
+            {**log, "n_solver_retries": retries})
 
 
 @partial(jax.jit, static_argnames=("f0", "axis", "config"))

@@ -12,7 +12,7 @@ This variant never holds more than one *chunk* of points in HBM:
   chunk's derivative blocks on the fly and accumulates only the reduced
   camera system A (9F, 9F), its rhs b (9F,), and the scalar error — the
   classic blocked Schur accumulation, with the (3C, 9F)^T (3C, 9F) chunk
-  matmul on the MXU;
+  product as one matmul;
 - after the replicated (9F, 9F) solve, a second scan recomputes each
   chunk's blocks once more to back-substitute its point updates and
   accumulate the trial error under the updated cameras.
@@ -21,7 +21,6 @@ Recomputing derivatives per scan trades O(P F) cheap FLOPs for an O(P F)
 memory ceiling -> O(C F); the expensive O(P (9F)^2) Schur work happens
 exactly once per retry, as in the dense path. Semantics (damping protocol,
 stopping rules, gauge) are identical to the dense core and the reference.
-XLA double-buffers the scan's HBM->VMEM chunk streaming automatically.
 """
 
 from __future__ import annotations
@@ -34,15 +33,6 @@ import jax.numpy as jnp
 
 from ..config import HIGHEST, LMConfig
 from ..ops.linalg import chol3x3, inv3x3, inv_lower3, solve_lower3
-from ..ops.pallas_schur import (
-    assemble_type_major,
-    finish_schur,
-    fused_backsub_chunk,
-    fused_chunk_update,
-    schur_acc_dim,
-    type_major_to_camera_major,
-    use_fused_schur,
-)
 from ..ops.pallas_syrk import (
     finish_syrk_accumulator,
     syrk_accumulator_dim,
@@ -180,64 +170,14 @@ def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0, huber_delta=Non
     return d_P, d_F, matE, matF, matG, e_chunk
 
 
-def _build_system_fused(
-    state_cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None, dist=None,
-    robust_kind: str = "huber",
-):
-    """Fused generate-and-reduce variant of :func:`_build_system`
-    (TPU f32 path; see ``ops/pallas_schur.py``): per chunk, one generation
-    pass feeds both the gradient-side sums and the damped type-major Y
-    whose SYRK accumulates in place — the (C, 3, 9F) coupling block, the
-    big triangular solve, casts, and pads never touch HBM.
-
-    Returns (A', b', E_now, (diag_g, d_F), free_tm) in type-major layout.
-    """
-    nf = state_cam.f.shape[0]
-    dt = x_ch.dtype
-    f_pad, n_acc = schur_acc_dim(nf)
-
-    def body(carry, inp):
-        acc, g_acc, df_acc, e_acc, bp_acc = carry
-        X_c, x_c, vis_c = inp
-        acc, d_F, matG, e_chunk, b_p32 = fused_chunk_update(
-            acc, state_cam, X_c, x_c, vis_c, f0, c, huber_delta, dist,
-            robust_kind,
-        )
-        return (acc, g_acc + matG, df_acc + d_F, _kadd(e_acc, e_chunk),
-                bp_acc + b_p32), None
-
-    zero = jnp.zeros((), dt)
-    init = (
-        jnp.zeros((n_acc, n_acc), jnp.float32),
-        jnp.zeros((nf, 9, 9), dt),
-        jnp.zeros((9 * nf,), dt),
-        (zero, zero),
-        jnp.zeros((9, f_pad), dt),
-    )
-    (acc, g, d_f, (e_now, _), bp32), _ = jax.lax.scan(body, init, (X_ch, x_ch, vis_ch))
-    d_f = d_f * free
-    schur_tm = finish_schur(acc, nf)
-    b_p_tm = bp32.reshape(-1)
-    a, b, free_tm = assemble_type_major(
-        schur_tm, b_p_tm, g, d_f, free, c, nf, f_pad
-    )
-    diag_g = jnp.diagonal(g, axis1=-2, axis2=-1).reshape(-1)  # (9F,) undamped
-    return a, b, e_now, (diag_g, d_f), free_tm
-
-
 def _kadd(acc, x):
     """One Kahan compensated-summation step on a (sum, comp) carry pair.
 
     The LM accept test and the Nielsen gain ratio read scalars that are
-    plain f32 sums of per-chunk partials (131 chunks at the north star);
+    plain f32 sums of per-chunk partials (131 chunks at 100k points);
     compensating them removes the accumulation-order noise from the
-    *decisions* at ~zero cost (3 scalar ops per chunk). Measured effect
-    (BASELINE.md): the 12/14 retry flip between chunk 768/512 collapses
-    to 13 retries for BOTH — chunk-invariant decisions — at the price of
-    leaving the uncompensated 768 config's lucky 12-retry rounding basin
-    (north star 4.36 -> 4.66 s, still well under the 5 s target; shipped
-    because a protocol robust to chunk size beats a +0.3 s basin that
-    any layout change could flip away — VERDICT r2 next-step #7/weak #2).
+    *decisions* at ~zero cost (3 scalar ops per chunk), so the retry
+    count no longer depends on the chunk size.
     """
     s, comp = acc
     y = x - comp
@@ -251,11 +191,9 @@ def _vary(v, axis_name):
     accumulations)."""
     if axis_name is None:
         return v
-    if hasattr(jax.lax, "pcast"):
-        return jax.tree.map(
-            lambda a: jax.lax.pcast(a, (axis_name,), to="varying"), v
-        )
-    return jax.tree.map(lambda a: jax.lax.pvary(a, (axis_name,)), v)
+    return jax.tree.map(
+        lambda a: jax.lax.pcast(a, (axis_name,), to="varying"), v
+    )
 
 
 def _build_system(
@@ -280,8 +218,8 @@ def _build_system(
             robust_kind,
         )
         # Cholesky-split the damped point blocks: F^T Einv F = (L^-1 F)^T
-        # (L^-1 F) — a *symmetric* rank-k product, computed by the Pallas
-        # SYRK kernel (lower-triangular tiles only) on TPU.
+        # (L^-1 F) — a *symmetric* rank-k product, lower tiles only on
+        # the GPU (ops/pallas_syrk.py).
         matEc = matE + c * matE * eye3[None]
         linv = inv_lower3(chol3x3(matEc))
         # one batched matmul instead of 3-step substitution (layout win)
@@ -299,7 +237,7 @@ def _build_system(
             _kadd(e_acc, e_chunk),
         ), None
 
-    n_acc = syrk_accumulator_dim(nf9)
+    n_acc = syrk_accumulator_dim(nf9, dt)
     init = _vary(
         (
             jnp.zeros((n_acc, n_acc), dt),
@@ -331,32 +269,12 @@ def _build_system(
 
 def _backsub_and_trial(
     state_cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi,
-    axis_name=None, huber_delta=None, fused=False, dist=None,
+    axis_name=None, huber_delta=None, dist=None,
     model: str | None = None, robust_kind: str = "huber",
 ):
     """Scan 2: per chunk, recompute blocks at the *current* state, back-
     substitute the point update, and accumulate the trial error under the
-    *updated* cameras. Returns (X_new chunks, E_trial). ``fused`` uses
-    the type-major plane formulation (no (C, F, 9) materialization)."""
-    if fused:
-        def body_f(acc, inp):
-            e_acc, dDd_acc, gd_acc = acc
-            X_c, x_c, vis_c = inp
-            X_new, e_c, dDd_c, gd_c = fused_backsub_chunk(
-                state_cam, trial_cam, X_c, x_c, vis_c, f0, c,
-                delta_xi * free, huber_delta, dist, robust_kind,
-            )
-            return (
-                _kadd(e_acc, e_c), _kadd(dDd_acc, dDd_c), _kadd(gd_acc, gd_c)
-            ), X_new
-
-        zero_f = jnp.zeros((), x_ch.dtype)
-        zp = (zero_f, zero_f)
-        ((e_trial, _), (dDd_pts, _), (gd_pts, _)), X_new_ch = jax.lax.scan(
-            body_f, (zp, zp, zp), (X_ch, x_ch, vis_ch)
-        )
-        return X_new_ch, e_trial, dDd_pts, gd_pts
-
+    *updated* cameras. Returns (X_new chunks, E_trial)."""
     dt = x_ch.dtype
     eye3 = jnp.eye(3, dtype=dt)
     K_trial = build_K(trial_cam.f, trial_cam.u, f0)
@@ -420,6 +338,23 @@ def _chunked(arr: jax.Array, n_chunks: int) -> jax.Array:
     return arr.reshape((n_chunks, arr.shape[0] // n_chunks) + arr.shape[1:])
 
 
+def chunk_points(x: jax.Array, vis: jax.Array, X: jax.Array, chunk_size: int):
+    """Pad the points axis of (x (P, F, 2), vis (P, F) or (P, 1),
+    X (P, 3)) to a multiple of ``chunk_size`` and split it into
+    (n_chunks, chunk_size, ...) blocks. Padded points are unseen
+    (vis = 0) and sit at mean(X), so they contribute nothing."""
+    pad = (-x.shape[0]) % chunk_size
+    if pad:
+        dt = x.dtype
+        x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], dt)], axis=0)
+        vis = jnp.concatenate([vis, jnp.zeros((pad,) + vis.shape[1:], dt)], axis=0)
+        X = jnp.concatenate(
+            [X, jnp.broadcast_to(jnp.mean(X, axis=0), (pad, 3))], axis=0
+        )
+    n_chunks = x.shape[0] // chunk_size
+    return _chunked(x, n_chunks), _chunked(vis, n_chunks), _chunked(X, n_chunks)
+
+
 def lm_optimize_chunked(
     x: jax.Array,
     state0: BAState,
@@ -441,8 +376,7 @@ def lm_optimize_chunked(
 
     ``init_c``/``init_nu`` resume the damping schedule: running k then m
     iterations with the carried (state, c, nu) equals one k+m-iteration
-    run — the checkpoint/resume contract for the long 100k+-point runs
-    (VERDICT r1 missing #5).
+    run — the checkpoint/resume contract for the long 100k+-point runs.
 
     With ``config.record_log`` the last return value is a *scalar* log —
     ``{"reprojection_error": (max_iter + 1,)}`` — O(max_iter) memory at
@@ -452,22 +386,9 @@ def lm_optimize_chunked(
     should checkpoint segments instead (``runtime/elastic.py``)."""
     npts = x.shape[0]
     dt = x.dtype
-    pad = (-npts) % chunk_size
-    if pad:
-        x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], dt)], axis=0)
-        vis = jnp.concatenate([vis, jnp.zeros((pad,) + vis.shape[1:], dt)], axis=0)
-        center = jnp.mean(state0.X, axis=0)
-        state0 = state0._replace(
-            X=jnp.concatenate([state0.X, jnp.broadcast_to(center, (pad, 3))], axis=0)
-        )
     model = resolve_distortion_model(dist, config.distortion_model)
-    n_chunks = x.shape[0] // chunk_size
-    x_ch = _chunked(x, n_chunks)
-    vis_ch = _chunked(vis, n_chunks)
-
-    def split(state):
-        cam = state._replace(X=jnp.zeros((0, 3), dt))
-        return cam, _chunked(state.X, n_chunks)
+    x_ch, vis_ch, X_ch0 = chunk_points(x, vis, state0.X, chunk_size)
+    cam0 = state0._replace(X=jnp.zeros((0, 3), dt))
 
     def error_of(cam, X_ch_):
         K = build_K(cam.f, cam.u, f0)
@@ -486,7 +407,6 @@ def lm_optimize_chunked(
         )
         return _psum(e, axis_name)
 
-    cam0, X_ch0 = split(state0)
     e0 = error_of(cam0, X_ch0)
 
     record = config.record_log
@@ -500,15 +420,6 @@ def lm_optimize_chunked(
     huber_delta = config.huber_delta if robust_cfg is not None else None
     robust_kind = robust_cfg or "huber"
 
-    nf = state0.f.shape[0]
-    # The fused Pallas build implements the radial chain only; the
-    # 4-column OPENCV (tangential) model routes through the shared
-    # non-fused chain.
-    fused = (
-        use_fused_schur(dt) and axis_name is None
-        and (dist is None or dist.shape[-1] == 2)
-    )
-    f_pad_tm, _ = schur_acc_dim(nf)
 
     def inner(cam, X_ch_, e_prev, c, nu):
         def cond(carry):
@@ -528,23 +439,15 @@ def lm_optimize_chunked(
 
         def body(carry):
             c_cur, nu_cur, _, _, _, _, _, tries = carry
-            if fused:
-                a, b, e_w, (diag_g, d_f), free_tm = _build_system_fused(
-                    cam, X_ch_, x_ch, vis_ch, free, f0, c_cur, huber_delta,
-                    dist, robust_kind,
-                )
-                delta_tm = solve_cam(a, b) * free_tm
-                delta_xi = type_major_to_camera_major(delta_tm, nf, f_pad_tm)
-            else:
-                a, b, e_w, (diag_g, d_f) = _build_system(
-                    cam, X_ch_, x_ch, vis_ch, free, f0, c_cur, axis_name,
-                    huber_delta, dist, model, robust_kind,
-                )
-                delta_xi = solve_cam(a, b) * free
+            a, b, e_w, (diag_g, d_f) = _build_system(
+                cam, X_ch_, x_ch, vis_ch, free, f0, c_cur, axis_name,
+                huber_delta, dist, model, robust_kind,
+            )
+            delta_xi = solve_cam(a, b) * free
             trial_cam = _apply_update(cam, delta_xi, jnp.zeros((0, 3), dt))
             X_new_ch, e_trial, dDd_pts, gd_pts = _backsub_and_trial(
                 cam, trial_cam, X_ch_, x_ch, vis_ch, free, f0, c_cur, delta_xi,
-                axis_name, huber_delta, fused=fused, dist=dist, model=model,
+                axis_name, huber_delta, dist=dist, model=model,
                 robust_kind=robust_kind,
             )
             e_base = e_w if huber_delta is not None else e_prev
@@ -558,10 +461,9 @@ def lm_optimize_chunked(
                 c_next = jnp.where(accepted, c_cur * shrink, c_cur * nu_cur)
                 # never-accepting storms grow c super-exponentially
                 # (c *= nu, nu *= 2): unclamped it hits f32 Inf after
-                # ~17 rejections and the Inf/NaN-damped systems at BAL
-                # scale crash the TPU worker (round-5 root cause of the
-                # bal_large_sparse kernel fault). 1e25 already dominates
-                # any Hessian scale; 1e12 keeps c * nu finite in f32.
+                # ~17 rejections, and Inf/NaN-damped systems poison every
+                # later solve. 1e25 already dominates any Hessian scale;
+                # 1e12 keeps c * nu finite in f32.
                 c_next = jnp.minimum(c_next, jnp.asarray(1e25, c_next.dtype))
                 nu_next = jnp.where(accepted, jnp.full_like(nu_cur, 2.0),
                                     jnp.minimum(nu_cur * 2.0,
@@ -644,22 +546,12 @@ def fit_distortion_chunked(
             model = resolve_distortion_model(dist, "auto")
         else:
             model = "opencv" if tangential else "radial"
-    
-    npts = x.shape[0]
+
     dt = x.dtype
-    pad = (-npts) % chunk_size
-    if pad:
-        x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], dt)], axis=0)
-        vis = jnp.concatenate([vis, jnp.zeros((pad,) + vis.shape[1:], dt)], axis=0)
-        state = state._replace(X=jnp.concatenate(
-            [state.X, jnp.broadcast_to(jnp.mean(state.X, axis=0), (pad, 3))],
-            axis=0,
-        ))
-    n_chunks = x.shape[0] // chunk_size
+    x_ch, vis_ch, X_ch = chunk_points(x, vis, state.X, chunk_size)
     cam = state._replace(X=jnp.zeros((0, 3), dt))
     K = build_K(cam.f, cam.u, f0)
-    chunks = (_chunked(state.X, n_chunks), _chunked(x, n_chunks),
-              _chunked(vis, n_chunks))
+    chunks = (X_ch, x_ch, vis_ch)
 
     def accumulate(terms_of_chunk):
         def body(acc, inp):

@@ -7,7 +7,7 @@ Every other core represents visibility as a dense (P, F) mask over dense
 BAL-class problems (thousands of cameras, ~0.1-1% fill) need the layout
 production BA systems use: a flat observation list.
 
-TPU-native design (this is NOT a sparse-matrix port):
+Accelerator-native design (this is NOT a sparse-matrix port):
 
 - **Layout**: three static-shape arrays sorted by point id —
   ``point_idx (N,) int32``, ``cam_idx (N,) int32``, ``xy (2, N)``.
@@ -29,28 +29,24 @@ TPU-native design (this is NOT a sparse-matrix port):
   O(n_obs) FLOPs and bytes. A block-Jacobi (SCHUR_JACOBI) 9x9
   preconditioner built once per retry makes PCG converge in tens of
   iterations. This is the ITERATIVE_SCHUR architecture of production
-  BA solvers, recast for what the TPU actually runs fast (measured,
-  round 5): gathers move k elements per index through one stacked
-  (k, M)-table ``take`` (14-24x over k thin 1-D gathers — gather cost
-  is scalar-unit index throughput), and every camera-side segment
-  reduction is a chunked ONE-HOT MXU CONTRACTION (70x over
+  BA solvers, recast as dense XLA programs: gathers move k elements
+  per index through one stacked (k, M)-table ``take`` (one wide gather
+  instead of k thin 1-D gathers), and every camera-side segment
+  reduction is a chunked ONE-HOT MATMUL (a contraction instead of a
   scatter-add; kills the camera argsort entirely). Point-side
-  reductions stay sorted ``segment_sum`` (the (N, k)-wide scatter
-  variant measured slower).
+  reductions stay sorted ``segment_sum``. Whether the one-hot
+  reduction still beats ``segment_sum`` on the GPU is an open
+  measurement.
 - **LM protocol**: identical to the dense/chunked cores (Nielsen or
   reference damping, accept test, never-accepted stop, gauge handling
   via ``normalize_gauge``/``gauge_mask``), so segmented resume and the
   stopping contract (reference ``:186-191``) carry over.
 
-**Lane-major layout (the TPU tile-padding contract).** XLA:TPU stores
-every array in (sublane, lane) = (8, 128)-class tiles over its two
-minormost dimensions, so an (N, 3) array physically occupies N x 128
-lanes — a 42x blowup that turns 10M observations' factor arrays into
-~5 GB *each* (measured: the AOT compiler refused an f32[10M, 3, 4]
-camera-matrix gather at 20.48 GB). Every per-observation array in this
-core is therefore **transposed**: the big N axis is minormost (lane)
-and the small component axis is the sublane, padding 3 -> 8 instead of
-3 -> 128. Concretely: ``SparseObs.xy`` is ``(2, N)``; Jacobian factors
+**Component-major layout.** Every per-observation array in this core
+is **transposed**: the big N axis is minormost and the small component
+axis leads, so no backend can tile-pad the small axis up to a vector
+width (a padded (N, 3) layout would multiply 10M observations' factor
+arrays by tens). Concretely: ``SparseObs.xy`` is ``(2, N)``; Jacobian factors
 are ``a1, a2 (3, N)`` / ``b1, b2 (9, N)``; per-point quantities are
 row stacks ``(3, P)`` with the symmetric 3x3 point blocks held as six
 ``(P,)`` rows (``_sym3_*``); segment reductions run row-by-row over
@@ -110,7 +106,7 @@ class SparseObs(NamedTuple):
     """Observation list sorted ascending by ``point_idx``.
 
     ``xy`` is **lane-major** ``(2, N)`` (see the module docstring: an
-    (N, 2) array tile-pads 2 -> 128 lanes on TPU — 5 GB at N=10M).
+    (N, 2) layout can tile-pad the 2-axis to a full vector width).
     ``weights`` are optional per-observation confidences (multiplied into
     the IRLS weights); padding observations carry weight 0.
     """
@@ -184,10 +180,9 @@ def _calc_pmat(cam: BAState, f0: float) -> jax.Array:
 
 
 # "Rows" are tuples of 1-D arrays — a k-row stack held as k separate
-# (N,)/(P,) vectors. 1-D arrays admit only one TPU layout, so XLA can
-# never insert a transposed layout-copy that pads the small axis to 128
-# lanes (observed: (9, 10M) loop-invariant copies in {0,1} layout cost
-# 4.77 GB each — 14.2x padding). All row algebra is unrolled Python
+# (N,)/(P,) vectors. 1-D arrays admit only one layout, so XLA can
+# never insert a transposed layout-copy that pads the small axis to a
+# vector width. All row algebra is unrolled Python
 # loops over k <= 12 — XLA fuses the resulting elementwise graphs.
 Rows = tuple
 
@@ -196,10 +191,9 @@ def _rows_gather(rows: Rows, idx: jax.Array) -> Rows:
     """Row-stack gather: (k x (M,), (N,) ids) -> k x (N,).
 
     ONE wide gather (`take` along the lane axis of the stacked (k, M)
-    table) instead of k thin 1-D gathers: XLA:TPU gather cost is
-    per-INDEX (scalar-unit bound), so moving k elements per index is
-    ~k x faster — measured 14-24x at N=5M, k=9 (344 -> 25 ms from an
-    (F,)-table, 947 -> 39 ms from a (P,)-table). The (k, M) stack of
+    table) instead of k thin 1-D gathers: gather cost is largely
+    per-INDEX, so moving k elements per index amortizes it k ways.
+    The (k, M) stack of
     loop-invariant rows is hoisted by XLA; the (k, N) result is
     lane-major, so no tile-padding blowup."""
     if len(rows) == 1:
@@ -522,13 +516,12 @@ def _onehot(ci_c: jax.Array, nf: int, dt) -> jax.Array:
 def _cam_sum_rows(rows, ci: jax.Array, nf: int, obs_chunk: int,
                   axis_name=None):
     """Per-camera sum of per-observation rows: k x (N,) -> k x (F,) (or
-    a single (N,) -> (F,)) as chunked ONE-HOT MXU MATMULS.
+    a single (N,) -> (F,)) as chunked ONE-HOT MATMULS.
 
-    XLA:TPU scatter-add (what segment_sum lowers to) runs at
-    scalar-unit index throughput (~50 ms per (5M,) row measured); a
-    (C, F) one-hot against the (C, k) row stack turns the same
-    reduction into an MXU contraction — measured 70x faster (6.4 vs
-    446 ms for nine 5M rows at F=100). The one-hot entries are exact
+    A (C, F) one-hot against the (C, k) row stack turns the
+    scatter-add that segment_sum lowers to into a dense contraction
+    (on the GPU the comparison with ``segment_sum`` is still to be
+    measured). The one-hot entries are exact
     in any dtype; HIGHEST precision keeps f32 summand accuracy. No
     camera-sorted permutation is needed (killing the former full-N
     argsort + per-row permutation gathers)."""
@@ -571,7 +564,7 @@ def _camera_blocks_scan(b1, b2, alpha, w2, ci, nf, obs_chunk,
     outer products never materialize at full N. ``b1``/``b2`` arrive as
     nine (N,) rows (possibly narrow — see ``factor_dtype``; the chunk
     stacks upcast, so products and accumulators stay full-width). The
-    per-camera reduction is a one-hot MXU contraction per chunk (see
+    per-camera reduction is a one-hot contraction per chunk (see
     :func:`_cam_sum_rows`) — chunks slice the point-sorted order
     directly, no camera sort."""
     dt = w2.dtype
@@ -859,7 +852,7 @@ def _build_sparse_system_remat(cam, X, obs, free, f0, c, huber_delta,
                                    indices_are_sorted=True)
 
     def seg_c(rows_or_row, oh):
-        # one-hot MXU contraction per chunk (see _cam_sum_rows): scatter-
+        # one-hot contraction per chunk (see _cam_sum_rows): scatter-
         # add to (F,)-sized rows is scalar-unit bound, ~70x slower
         if isinstance(rows_or_row, tuple):
             data = jnp.stack(rows_or_row, -1).astype(oh.dtype)
@@ -1108,7 +1101,7 @@ def _f_point_rows(vrows: Rows, factors, pi, ci, npts, matvec_chunk=None):
 def _ft_cam_rows(w_p: Rows, factors, pi, ci, nf, obs_chunk,
                  matvec_chunk=None, axis_name=None):
     """F^T (Einv-weighted point rows) as nine camera rows: per
-    observation r = w2 (a . w_point), summed into camera one-hot MXU
+    observation r = w2 (a . w_point), summed into camera one-hot
     contractions (:func:`_cam_sum_rows`) — no camera sort. The
     ``matvec_chunk`` twin bounds the full-N transients (the gathered
     w rows, dots, y rows) by computing y inside the chunk loop."""
@@ -1283,7 +1276,7 @@ def lm_optimize_sparse(
     model = resolve_distortion_model(dist, config.distortion_model)
     obs_chunk = min(obs_chunk, max(obs.n_obs, 1))
 
-    # camera-side reductions are one-hot MXU contractions over the
+    # camera-side reductions are one-hot contractions over the
     # point-sorted order in BOTH modes — no camera sort exists anymore
 
     nielsen = config.damping == "nielsen"
@@ -1429,10 +1422,9 @@ def lm_optimize_sparse(
                 c_next = jnp.where(accepted, c_cur * shrink, c_cur * nu_cur)
                 # never-accepting storms grow c super-exponentially
                 # (c *= nu, nu *= 2): unclamped it hits f32 Inf after
-                # ~17 rejections and the Inf/NaN-damped systems at BAL
-                # scale crash the TPU worker (round-5 root cause of the
-                # bal_large_sparse kernel fault). 1e25 already dominates
-                # any Hessian scale; 1e12 keeps c * nu finite in f32.
+                # ~17 rejections, and Inf/NaN-damped systems poison every
+                # later solve. 1e25 already dominates any Hessian scale;
+                # 1e12 keeps c * nu finite in f32.
                 c_next = jnp.minimum(c_next, jnp.asarray(1e25, c_next.dtype))
                 nu_next = jnp.where(accepted, jnp.full_like(nu_cur, 2.0),
                                     jnp.minimum(nu_cur * 2.0,
@@ -1529,7 +1521,7 @@ def fit_distortion_sparse(
                 q_c[None], r_c[None], jnp.stack([x_c, y_c], -1)[None],
                 w_c[None], jnp.stack(d_c, -1),
             )
-            # one-hot MXU contraction (see _cam_sum_rows): t is
+            # one-hot contraction (see _cam_sum_rows): t is
             # (C, ...) per-observation terms -> (F, ...) camera sums
             oh = _onehot(ci_c, nf, t.dtype)
             tf = jnp.einsum(

@@ -3,7 +3,7 @@
 The reference (/root/reference) stops at point estimates; production SfM
 pipelines (COLMAP/ceres `Covariance`) also report *uncertainties* —
 per-point 3x3 and per-camera 9x9 covariance blocks of the BA optimum.
-This module computes them TPU-natively from the same Gauss-Newton
+This module computes them on the device from the same Gauss-Newton
 blocks the LM cores already generate (``_compute_derivs``), so the cost
 is one extra undamped Schur assembly plus one (9F, 9F) Cholesky-backed
 inverse — no new derivative code and no LM iterations.

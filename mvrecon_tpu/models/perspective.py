@@ -5,7 +5,7 @@ projective-depth estimation (primary & dual methods), rank-4 factorization,
 Euclidean upgrading via the dual absolute quadric, metric reconstruction,
 and world-axis normalization.
 
-TPU-first re-design decisions:
+Accelerator-first re-design decisions:
 
 - observations are dense (F, P, 2); homogenized data is (P, F, 3);
 - the iterative depth loops (reference ``:61-144`` primary, ``:147-235``
@@ -42,8 +42,8 @@ from ..ops.moments import fourth_moment_matrix, sym_expand, sym_reduce
 from ..ops.rotations import unit_vec
 
 # Status codes for in-graph failure reporting (SURVEY.md §5: the reference
-# raises ValueError at perspective_camera_calibration.py:332,401; on TPU
-# divergence must be a returned flag).
+# raises ValueError at perspective_camera_calibration.py:332,401; on the
+# device divergence must be a returned flag).
 STATUS_OK = 0
 STATUS_MAX_ITER = 1  # depth iteration hit max_iter (reference prints a warning)
 STATUS_OMEGA_INDEFINITE = 2  # reference raises ValueError at :332/:401
@@ -122,10 +122,9 @@ def _top_eigvec_lowrank(y: jax.Array) -> jax.Array:
 
 # Bound on the (F, 12, C) Khatri-Rao transient of the dual depth step's
 # chunked Gram accumulation (~256 MB at f32). At the full-pipeline north
-# star (P=100k, F=1000) the one-shot (F, P, 12) factor is 4.47 GB and,
-# together with its (F, 4, 3, P) broadcast, overflows a v5e's 16 GB HBM
-# (measured: 15.07 GB program, OOM by 65 MB); chunking caps it at this
-# budget with identical arithmetic (each point's rank-1 contribution is
+# star (P=100k, F=1000) the one-shot (F, P, 12) factor is 4.47 GB, plus
+# its (F, 4, 3, P) broadcast; chunking caps it at this budget with
+# identical arithmetic (each point's rank-1 contribution is
 # summed either way).
 _KR_CHUNK_BYTES = 256 * 1024 * 1024
 
@@ -190,9 +189,9 @@ def _rank4_subspace_gram(wm: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array
     of the *smaller* Gram (statically chosen side). Returns
     (u4 (3F, 4), v4 (P, 4), sigma4 (4,)) in descending order.
 
-    TPU rationale: the batched (S, 3F, P) SVD is the depth loop's single
-    dominant op (104 ms in-graph at (64, 300, 200) on v5e); the Gram eigh
-    of the 200-side is 75 ms and the result is mathematically identical
+    Rationale: the batched (S, 3F, P) SVD is the depth loop's single
+    dominant op; the eigh of the smaller Gram is cheaper and the result
+    is mathematically identical
     (the Gram's top eigenvectors ARE the singular vectors; downstream
     depth updates depend only on the rank-4 *projection*, which is
     basis-invariant). Same trick as the sharded calibration
@@ -508,7 +507,6 @@ def euclidean_upgrading(
         k, j_med_prev, _, _, _, count = carry
         # closed-form 3x3 inverse: jnp.linalg.inv on the (F, 3, 3) batch
         # is a latency-bound custom call re-paid every loop iteration
-        # (measured ~5 ms at (64, 100, 3, 3) in-graph on v5e)
         q = inv3x3(k) @ p  # (F, 3, 4)
         omega, sigma, w, ok = calc_omega(q)
         h = _homography_from_omega(sigma, w)

@@ -1,11 +1,11 @@
 """Small-matrix linear algebra kernels.
 
-TPU rationale: the pipelines are dominated by *batched tiny* problems
+Rationale: the pipelines are dominated by *batched tiny* problems
 (3x3 inverses at 100k points, 6x6/10x10 symmetric eigenproblems, batched
 F x F / P x P eigh). General LAPACK-style ``np.linalg.eig`` (reference
 ``affine_camera_calibration.py:120,207``, ``perspective_camera_calibration
-.py:311,315``) has no TPU lowering — but every matrix the reference feeds it
-(B, A, Omega) is symmetric by construction, so ``eigh`` is the TPU-native
+.py:311,315``) has no accelerator lowering — but every matrix the reference feeds it
+(B, A, Omega) is symmetric by construction, so ``eigh`` is the native
 replacement. 3x3 inverses (reference ``bundle_adjustment.py:128``) use the
 closed-form adjugate: one fused VPU expression instead of a LU factorization,
 which is what lets the Schur point-block elimination stay on-device at 100k
@@ -100,8 +100,7 @@ def polar_orthogonal3(a: jax.Array) -> jax.Array:
     ``jacobi_eigh`` — pure XLA. Identical to the SVD polar factor U V^T
     for nonsingular A (det sign preserved); intended for near-orthogonal
     inputs (rotation recovery), where a batched 3x3 SVD is a pure
-    latency-bound custom call (~28 ms in-graph at (64, 100, 3, 3) on
-    v5e vs ~nothing for this path).
+    latency-bound custom call (elementwise math here).
 
     (Near-)singular input — where A (A^T A)^{-1/2} is 0/0 along the null
     direction(s) while the SVD polar factor stays well-defined — takes a
@@ -188,7 +187,7 @@ def inv_lower3(l: jax.Array) -> jax.Array:
     """Closed-form inverse of (..., 3, 3) lower-triangular matrices.
     Turning L^-1 into an explicit operand lets the big triangular solve
     L^-1 B become ONE batched matmul-shaped einsum (better layout/fusion
-    on TPU than the 3-step substitution, which materializes a stack)."""
+    than the 3-step substitution, which materializes a stack)."""
     i11 = 1.0 / l[..., 0, 0]
     i22 = 1.0 / l[..., 1, 1]
     i33 = 1.0 / l[..., 2, 2]
@@ -209,8 +208,7 @@ def inv_lower3(l: jax.Array) -> jax.Array:
 def chol9_blocks(g: jax.Array) -> jax.Array:
     """Closed-form Cholesky L (lower) of (..., 9, 9) SPD matrices via
     3x3-blocked elimination — pure batched elementwise/3x3 math, no
-    LAPACK-style custom call (a batched (6400, 9, 9) ``cholesky`` measures
-    ~6 ms in-graph on v5e: latency-bound; this is ~none)."""
+    LAPACK-style custom call, which is latency-bound at this size."""
     A = g[..., 0:3, 0:3]
     B = g[..., 3:6, 0:3]
     C = g[..., 6:9, 0:3]
@@ -224,7 +222,7 @@ def chol9_blocks(g: jax.Array) -> jax.Array:
     # SCHUR_JACOBI preconditioner blocks of window-visibility BA), and a
     # bf16-pass product there makes the remainder indefinite ->
     # sqrt(negative) -> a NaN preconditioner (round-5 root cause of the
-    # sparse core's never-accepting LM storms on TPU).
+    # sparse core's never-accepting LM storms).
     hp = jax.lax.Precision.HIGHEST
     l11 = chol3x3(A)
     i11 = inv_lower3(l11)
@@ -250,7 +248,7 @@ def inv9_spd(g: jax.Array) -> jax.Array:
     """Closed-form inverse of (..., 9, 9) SPD matrices (the damped BA
     camera blocks): blocked Cholesky + blocked triangular inversion,
     G^-1 = L^-T L^-1. Replaces ``jnp.linalg.inv`` on the camera blocks
-    (~16 ms in-graph at (64, 100, 9, 9) on v5e — pure latency)."""
+    (a latency-bound custom call at this size)."""
     hp = jax.lax.Precision.HIGHEST
     l = chol9_blocks(g)
     i11 = inv_lower3(l[..., 0:3, 0:3])
@@ -297,11 +295,10 @@ def jacobi_eigh(
     cyclic Jacobi with parallel round-robin orderings — pure XLA
     (elementwise ops + static gathers), no LAPACK-style custom call.
 
-    TPU rationale: ``jnp.linalg.eigh`` on a (3200, 12, 12) batch lowers
-    to a blocked custom call that is *latency*-bound at tiny n (measured
-    ~54 ms per call in the batched pipeline); a Jacobi sweep applies all
-    n/2 disjoint rotations of a round simultaneously across the whole
-    batch as fused VPU math. Quadratic convergence: ``max_sweeps``
+    Rationale: ``jnp.linalg.eigh`` on a (3200, 12, 12) batch lowers to a
+    custom call that is *latency*-bound at tiny n; a Jacobi sweep
+    applies all n/2 disjoint rotations of a round simultaneously across
+    the whole batch as fused elementwise math. Quadratic convergence: ``max_sweeps``
     defaults far beyond what n <= 16 needs; an off(A)-based early exit
     stops typical batches after 5-8 sweeps. Exact to fp — same contract
     as ``eigh`` (ascending eigenvalues, ``v[..., :, k]`` the k-th
@@ -420,7 +417,7 @@ def jacobi_eigh(
 def blockdiag_scatter(blocks: jax.Array) -> jax.Array:
     """(F, K, K) -> (F*K, F*K) block-diagonal matrix, statically shaped.
 
-    TPU-native replacement for ``scipy.linalg.block_diag`` (reference
+    Traceable replacement for ``scipy.linalg.block_diag`` (reference
     ``bundle_adjustment.py:656``): writes blocks onto the (i == j) diagonal
     of the (F, K, F, K) view with one scatter-free ``where`` over an iota
     mask — XLA fuses it into the consumer.

@@ -1,4 +1,4 @@
-"""Fourth-moment quadratic forms — the MXU formulation of the reference's
+"""Fourth-moment quadratic forms — the matmul formulation of the reference's
 scalar metric-constraint loops.
 
 The reference builds 3^4 / 4^4 constraint tensors ``B_cal`` / ``A_cal`` with
@@ -14,7 +14,7 @@ where row ``a`` of ``V[f]`` is a flattened symmetric combination of outer
 products of the motion rows (e.g. ``u0 u0^T``, ``u1 u1^T``,
 ``u0 u1^T + u1 u0^T``) and ``C[f]`` is a tiny per-image coefficient matrix
 determined by the camera model. That turns the hot scalar loop into one
-einsum/matmul — exactly what the MXU wants, and trivially vmappable over
+einsum/matmul — exactly what matrix units want, and trivially vmappable over
 scenes.
 
 ``sym_reduce`` / ``sym_expand`` implement the reference's packing of the

@@ -1,73 +1,79 @@
-"""Pallas TPU kernel: symmetric rank-k update S = Y^T Y (SYRK).
+"""Pallas GPU kernel (Triton route): symmetric rank-k update S = Y^T Y.
 
 This is the hot op of large-scale bundle adjustment: the reduced camera
-system accumulates `sum_p F_p^T Einv_p F_p`, which (via the closed-form
-3x3 Cholesky of the damped point blocks) is exactly `Y^T Y` with
-Y = L^-1 F of shape (3C, 9F) per point-chunk. The product is symmetric —
-a plain XLA matmul computes all N^2 output tiles; this kernel enumerates
-ONLY the lower-triangular tile pairs (~2x fewer MXU FLOPs and ~2x fewer
-HBM tile fetches at 9F = 9000) and the wrapper mirrors the result.
+system accumulates ``sum_p F_p^T Einv_p F_p``, which (via the closed-form
+3x3 Cholesky of the damped point blocks) is exactly ``Y^T Y`` with
+Y = L^-1 F of shape (3C, 9F) per point chunk. The product is symmetric;
+XLA hands the full product to cuBLAS, which computes all N^2 outputs.
+This kernel computes ONLY the lower-triangular output tiles — half the
+FLOPs — and the caller mirrors once, after the whole chunk scan.
 
-Design (round 2 — the round-1 kernel lost to XLA because its dense
-(i, j, k) grid still *fetched* the skipped upper tiles):
+Design:
 
-- the grid is (T, Kt) where T = nt (nt + 1) / 2 packs the lower triangle;
-  the (i, j) tile coordinates for each packed index are precomputed on
-  the host and handed to the kernel via ``PrefetchScalarGridSpec`` scalar
-  prefetch, so index maps (and therefore DMAs) never touch upper tiles;
-- the reduction index k is minor-most: each output tile stays resident in
-  VMEM across its whole k-loop and is accumulated in f32;
-- inputs may be bf16 (one MXU pass — the fast path the build scan uses
-  under ``MVRECON_PRECISION=default``) or f32.
+- the grid is 1-D over the T = nt (nt + 1) / 2 packed lower tiles; each
+  program derives its tile coordinates (i, j), i >= j, from
+  ``pl.program_id`` (``_tri_ij``), so no upper tile is ever scheduled;
+- each program loops over the contraction dimension in ``bk``-row slabs
+  (``lax.fori_loop``), multiplying the (bk, bn) column slabs i and j with
+  ``pl.dot`` and accumulating the (bn, bn) tile in f32 registers;
+- ``precision`` goes to ``pl.dot``: HIGHEST keeps full-FP32 operands
+  (IEEE products, no TF32), matching the XLA einsum at HIGHEST; DEFAULT
+  lets the tensor cores run TF32.
 
-Measured (v5e, K = 12288, N = 9000): XLA einsum 43 ms (DEFAULT) / 97 ms
-(HIGHEST); this kernel 24 ms with bf16 inputs — ~1.8x over the best XLA
-path, matching the 2x FLOP saving minus mirror overhead. See
-``scripts/bench_syrk.py``.
+Upper tiles of the output are never written and hold garbage until
+:func:`mirror_lower` masks them. The wrappers take the kernel for
+float32 work built for a CUDA device and the XLA einsum everywhere else
+(CPU tests, float64 parity runs, float32 work placed on the host); the
+choice is made per lowering platform (``lax.platform_dependent``), not
+per process. ``interpret=True`` runs the kernel body on the CPU for
+tests. Inside ``shard_map`` the output carries the operand's varying
+mesh axes (``vma``), as ``check_vma`` requires.
+
+Measured with ``scripts/bench_syrk.py`` on an NVIDIA H100 80GB HBM3 at a
+700 W power limit, at K = 2304, N = 9000 (the 100k x 1000 chunk shape),
+f32 at HIGHEST, with the tile constants below: 5.10 ms vs 7.86 ms for
+the XLA einsum, identical results; the chunked BA at 100k x 1000 (10 LM
+iterations) takes 7.10 s with the kernel and 11.32 s with the einsum.
+In the tile sweep at 700 W, 64- and 128-wide tiles tie (5.03-5.05 ms);
+at a 400 W limit the 128-wide tile was the fastest (5.46 ms vs 8.68 ms
+for the einsum). PERF.md has both sweeps.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
-
-import numpy as np
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-
-def _syrk_kernel(i_map_ref, j_map_ref, yi_ref, yj_ref, out_ref):
-    del i_map_ref, j_map_ref  # consumed by the index maps
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _zero():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    out_ref[:] += jax.lax.dot_general(
-        yi_ref[:],
-        yj_ref[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+# Tile shape: the fastest of the sweep in scripts/bench_syrk.py on the
+# H100 at K = 2304, N = 9000 (see PERF.md).
+TILE_N = 128
+TILE_K = 16
+NUM_WARPS = 4
+NUM_STAGES = 3
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _lower_tile_maps(nt: int) -> tuple[np.ndarray, np.ndarray]:
-    """Packed lower-triangle tile coordinates: t -> (i, j) with i >= j."""
-    pairs = [(i, j) for i in range(nt) for j in range(i + 1)]
-    idx = np.asarray(pairs, dtype=np.int32)
-    return np.ascontiguousarray(idx[:, 0]), np.ascontiguousarray(idx[:, 1])
+def _tri_ij(t):
+    """Packed lower-triangle index t -> tile coordinates (i, j), i >= j,
+    with t = i (i + 1) / 2 + j. The float square root can be off by one
+    near perfect squares; the two integer corrections make it exact."""
+    i = ((jnp.sqrt(8.0 * t.astype(jnp.float32) + 1.0) - 1.0) * 0.5).astype(jnp.int32)
+    i = jnp.where((i + 1) * (i + 2) // 2 <= t, i + 1, i)
+    i = jnp.where(i * (i + 1) // 2 > t, i - 1, i)
+    return i, t - i * (i + 1) // 2
 
 
 def syrk_lower(
-    y: jax.Array, tile_n: int = 512, tile_k: int = 1024, interpret: bool = False
+    y: jax.Array, precision=jax.lax.Precision.HIGHEST, tile_n: int = TILE_N,
+    tile_k: int = TILE_K, interpret: bool = False,
+    num_warps: int = NUM_WARPS, num_stages: int = NUM_STAGES,
 ) -> jax.Array:
     """Padded lower-triangle-only S = Y^T Y for Y (K, N): returns
     (n_pad, n_pad) f32 with only the (block) lower triangle valid —
@@ -78,116 +84,119 @@ def syrk_lower(
     n_pad = _round_up(n_dim, tile_n)
     k_pad = _round_up(k_dim, tile_k)
     y = jnp.pad(y, ((0, k_pad - k_dim), (0, n_pad - n_dim)))
-
     nt = n_pad // tile_n
-    i_map, j_map = _lower_tile_maps(nt)
-    n_lower = i_map.shape[0]
+    n_k = k_pad // tile_k
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_lower, k_pad // tile_k),
-        in_specs=[
-            pl.BlockSpec(
-                (tile_k, tile_n),
-                lambda t, k, i_map, j_map: (k, i_map[t]),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (tile_k, tile_n),
-                lambda t, k, i_map, j_map: (k, j_map[t]),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (tile_n, tile_n),
-            lambda t, k, i_map, j_map: (i_map[t], j_map[t]),
-            memory_space=pltpu.VMEM,
+    def kernel(y_ref, out_ref):
+        i, j = _tri_ij(pl.program_id(0))
+
+        def body(k, acc):
+            rows = pl.ds(k * tile_k, tile_k)
+            a = y_ref[rows, pl.ds(i * tile_n, tile_n)]
+            b = y_ref[rows, pl.ds(j * tile_n, tile_n)]
+            return acc + pl.dot(a, b, trans_a=True, precision=precision)
+
+        acc = jax.lax.fori_loop(
+            0, n_k, body, jnp.zeros((tile_n, tile_n), jnp.float32)
+        )
+        out_ref[pl.ds(i * tile_n, tile_n), pl.ds(j * tile_n, tile_n)] = acc
+
+    route = {} if interpret else dict(
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
         ),
     )
     return pl.pallas_call(
-        _syrk_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, n_pad), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * k_pad * tile_n * tile_n * n_lower,
-            bytes_accessed=2 * k_pad * n_pad * y.dtype.itemsize
-            + n_pad * n_pad * 4,
-            transcendentals=0,
+        kernel,
+        out_shape=jax.ShapeDtypeStruct(
+            (n_pad, n_pad), jnp.float32, vma=jax.typeof(y).vma
         ),
+        grid=(nt * (nt + 1) // 2,),
         interpret=interpret,
-    )(jnp.asarray(i_map), jnp.asarray(j_map), y, y)
+        name="syrk_lower",
+        **route,
+    )(y)
 
 
-def mirror_lower(lower: jax.Array, n_dim: int, tile_n: int = 512) -> jax.Array:
-    """Complete a :func:`syrk_lower` result: mask the (uninitialized)
-    upper tiles, transpose the strictly-lower tiles onto the upper side
+def mirror_lower(lower: jax.Array, n_dim: int, tile_n: int = TILE_N) -> jax.Array:
+    """Complete a :func:`syrk_lower` result: mask the (unwritten) upper
+    tiles, transpose the strictly-lower tiles onto the upper side
     (diagonal tiles are already complete and symmetric), unpad."""
     n_pad = lower.shape[0]
     tile_row = jnp.arange(n_pad) // tile_n
-    lower_block = tile_row[:, None] >= tile_row[None, :]
-    strict_lower_block = tile_row[:, None] > tile_row[None, :]
-    lo = jnp.where(lower_block, lower, 0.0)
-    full = lo + jnp.where(strict_lower_block, lo, 0.0).T
+    lo = jnp.where(tile_row[:, None] >= tile_row[None, :], lower, 0.0)
+    full = lo + jnp.where(tile_row[:, None] > tile_row[None, :], lo, 0.0).T
     return full[:n_dim, :n_dim]
 
 
-@partial(jax.jit, static_argnames=("tile_n", "tile_k", "interpret"))
-def syrk(
-    y: jax.Array, tile_n: int = 512, tile_k: int = 1024, interpret: bool = False
-) -> jax.Array:
-    """S = Y^T Y for Y (K, N): lower-triangular tiles on the MXU, mirrored.
-
-    Accepts f32 or bf16 input; accumulates in f32 and returns f32 (N, N).
-    """
-    lower = syrk_lower(y, tile_n=tile_n, tile_k=tile_k, interpret=interpret)
-    return mirror_lower(lower, y.shape[1], tile_n=tile_n)
-
-
-# The Pallas SYRK is the default TPU build-scan path (measured ~1.8x over
-# the einsum at the north-star chunk shape); MVRECON_USE_PALLAS_SYRK=0
-# opts out back to the XLA einsum.
-_USE_PALLAS = os.environ.get("MVRECON_USE_PALLAS_SYRK", "1") == "1"
+@partial(jax.jit, static_argnames=("precision", "tile_n", "tile_k",
+                                   "interpret", "num_warps", "num_stages"))
+def syrk(y: jax.Array, precision=jax.lax.Precision.HIGHEST,
+         tile_n: int = TILE_N, tile_k: int = TILE_K,
+         interpret: bool = False, num_warps: int = NUM_WARPS,
+         num_stages: int = NUM_STAGES) -> jax.Array:
+    """S = Y^T Y for Y (K, N): lower tiles by the kernel, mirrored.
+    Accepts f32 or bf16; accumulates in f32 and returns f32 (N, N)."""
+    lower = syrk_lower(y, precision, tile_n, tile_k, interpret=interpret,
+                       num_warps=num_warps, num_stages=num_stages)
+    return mirror_lower(lower, y.shape[1], tile_n)
 
 
-def use_pallas_syrk(dtype) -> bool:
-    return _USE_PALLAS and jax.default_backend() == "tpu" and dtype == jnp.float32
+def _uses_kernel(dtype) -> bool:
+    """The kernel is written for float32 operands; other dtypes always
+    take the einsum."""
+    return jnp.dtype(dtype) == jnp.float32
+
+
+def _kernel_or_einsum(kernel, einsum, x):
+    """``kernel(x)`` where the computation is lowered for a CUDA device,
+    ``einsum(x)`` for every other platform. Both must return the same
+    shape."""
+    return jax.lax.platform_dependent(x, cuda=kernel, default=einsum)
 
 
 def syrk_or_fallback(y: jax.Array, precision) -> jax.Array:
-    """Symmetric product Y^T Y.
+    """Symmetric product Y^T Y: the kernel on a CUDA device (f32), the
+    XLA einsum at ``precision`` elsewhere."""
+    def einsum(y):
+        return jnp.einsum("km,kn->mn", y, y, precision=precision)
 
-    On TPU: the packed lower-triangle Pallas kernel, with bf16 inputs when
-    ``precision`` is DEFAULT (single MXU pass) and f32 inputs otherwise.
-    Elsewhere (CPU tests/parity): the XLA einsum at ``precision``.
-    """
-    if use_pallas_syrk(y.dtype):
-        if precision == jax.lax.Precision.DEFAULT:
-            y = y.astype(jnp.bfloat16)
-        return syrk(y)
-    return jnp.einsum("km,kn->mn", y, y, precision=precision)
+    if not _uses_kernel(y.dtype):
+        return einsum(y)
+    n_dim = y.shape[1]
+    return _kernel_or_einsum(
+        lambda y: mirror_lower(syrk_lower(y, precision), n_dim), einsum, y
+    )
+
+
+def syrk_accumulator_dim(n_dim: int, dtype) -> int:
+    """Accumulator side length for :func:`syrk_lower_or_fallback`: the
+    kernel's padded width for float32, ``n_dim`` otherwise."""
+    return _round_up(n_dim, TILE_N) if _uses_kernel(dtype) else n_dim
 
 
 def syrk_lower_or_fallback(y: jax.Array, precision, n_acc: int) -> jax.Array:
     """Accumulation-friendly variant: returns an (n_acc, n_acc) partial
     whose mirror is deferred to :func:`finish_syrk_accumulator` —
     per-chunk calls in a scan sum these directly. ``n_acc`` must be
-    ``syrk_accumulator_dim(N)``."""
+    ``syrk_accumulator_dim(N, y.dtype)``."""
     n_dim = y.shape[1]
-    if use_pallas_syrk(y.dtype):
-        if precision == jax.lax.Precision.DEFAULT:
-            y = y.astype(jnp.bfloat16)
-        return syrk_lower(y)
-    full = jnp.einsum("km,kn->mn", y, y, precision=precision)
-    return jnp.pad(full, ((0, n_acc - n_dim), (0, n_acc - n_dim)))
 
+    def einsum(y):
+        full = jnp.einsum("km,kn->mn", y, y, precision=precision)
+        return jnp.pad(full, ((0, n_acc - n_dim), (0, n_acc - n_dim)))
 
-def syrk_accumulator_dim(n_dim: int, tile_n: int = 512) -> int:
-    """Accumulator side length for :func:`syrk_lower_or_fallback`."""
-    return _round_up(n_dim, tile_n) if use_pallas_syrk(jnp.float32) else n_dim
+    if not _uses_kernel(y.dtype):
+        return einsum(y)
+    return _kernel_or_einsum(lambda y: syrk_lower(y, precision), einsum, y)
 
 
 def finish_syrk_accumulator(acc: jax.Array, n_dim: int, dtype) -> jax.Array:
     """Mirror/unpad an accumulated :func:`syrk_lower_or_fallback` sum."""
-    if use_pallas_syrk(dtype):
-        return mirror_lower(acc, n_dim)
-    return acc[:n_dim, :n_dim]
+    def unpad(acc):
+        return acc[:n_dim, :n_dim]
+
+    if not _uses_kernel(dtype):
+        return unpad(acc)
+    return _kernel_or_einsum(lambda acc: mirror_lower(acc, n_dim), unpad, acc)

@@ -6,7 +6,7 @@ calibrated cameras and tracked observations, recover 3D points directly.
 This is the homogeneous DLT (direct linear transform) solved per point,
 batched over all points with one (P, 2F, 4) stacked system — the smallest-
 singular-vector problem maps to a batched 4x4 symmetric eigendecomposition
-(Gram trick) so the whole thing is einsum + eigh on the MXU, vmappable over
+(Gram trick) so the whole thing is einsum + eigh, vmappable over
 scenes.
 
 With a visibility mask, invisible rows are zeroed (they contribute nothing

@@ -1,5 +1,5 @@
 """Parallel execution: device meshes, scene-batched (DP) reconstruction,
-and point-sharded bundle adjustment (SPMD over ICI via GSPMD/shard_map)."""
+and point-sharded bundle adjustment (SPMD via GSPMD/shard_map)."""
 
 from .mesh import hybrid_scene_point_mesh, make_mesh, scene_point_mesh  # noqa: F401
 from .batched import batched_affine_reconstruction, batched_euclidean_reconstruction  # noqa: F401

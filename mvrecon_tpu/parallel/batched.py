@@ -1,10 +1,10 @@
 """Scene-batched (data-parallel) reconstruction.
 
 The BASELINE north star: 256 scenes x 100 views of factorization + BA
-batched over a TPU slice. Each scene is an independent reconstruction;
+batched over the devices. Each scene is an independent reconstruction;
 ``vmap`` turns every per-scene SVD/eigh/einsum into its batched form
-(saturating the MXU on one chip), and sharding the leading ``scenes`` axis
-over the mesh scales across chips — the collectives-free pure-DP regime.
+(large batched matmuls on one device), and sharding the leading ``scenes``
+axis over the mesh scales across devices — the collectives-free pure-DP regime.
 """
 
 from __future__ import annotations

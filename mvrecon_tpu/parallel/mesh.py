@@ -7,7 +7,7 @@ The framework's two parallelism axes (SURVEY.md §2, items 12-13):
 - ``points`` — intra-scene sharding of the P (feature points) dimension:
   observation rows, per-point Schur blocks, and the point side of every
   einsum are sharded; per-camera quantities stay replicated and are
-  combined with ``psum``-style all-reduces that XLA lays onto ICI.
+  combined with ``psum``-style all-reduces (NCCL between GPUs).
 
 There is deliberately no hand-written communication backend: collectives
 are emitted by GSPMD from sharding annotations (or explicitly inside
@@ -34,39 +34,32 @@ def make_mesh(axis_sizes: dict[str, int], devices=None) -> Mesh:
 
 
 def hybrid_scene_point_mesh(
-    n_slices: int, devices=None, axes: tuple[str, str] = ("scenes", "points")
+    n_groups: int, devices=None, axes: tuple[str, str] = ("scenes", "points")
 ) -> Mesh:
-    """Multi-slice (DCN x ICI) mesh: the outer axis spans TPU slices over
-    the data-center network, the inner axis stays within each slice on ICI.
+    """(scenes, points) mesh whose outer axis spans ``n_groups`` device
+    groups (e.g. hosts), the inner axis the devices of one group.
 
     The framework's communication pattern makes this split safe by
     construction: the ``scenes`` axis is collectives-free data parallelism
     (independent reconstructions, no cross-scene reduction anywhere), so
-    the slow DCN hop carries zero traffic during optimization; the
+    the slow inter-group hop carries zero traffic during optimization; the
     per-retry ``psum`` of camera-side Schur accumulations
-    (``sharded_ba.py``) rides ICI only. Mapping ``points`` across slices
-    instead would put one (9F, 9F) all-reduce per LM retry on DCN — never
-    do that; this helper exists so the fast axis assignment is the default.
+    (``sharded_ba.py``) stays inside a group. Mapping ``points`` across
+    groups instead would put one (9F, 9F) all-reduce per LM retry on the
+    slow link — never do that; this helper makes the fast assignment the
+    default.
 
-    On multi-slice TPU hardware the physical slice structure is read from
-    the devices' ``slice_index`` (via ``mesh_utils.create_hybrid_device_mesh``);
-    elsewhere (single slice, CPU) devices are grouped row-major so the
-    mesh shape — and every program compiled over it — is identical.
+    Devices are grouped row-major in ``devices`` order: the cards of one
+    host are all-to-all connected (NVLink), so any grouping within a host
+    is equivalent. Across processes, ``runtime.distributed.
+    process_scene_point_mesh`` groups devices by ``process_index``.
     """
     devices = list(devices) if devices is not None else jax.devices()
-    if len(devices) % n_slices:
+    if len(devices) % n_groups:
         raise ValueError(
-            f"{len(devices)} devices do not split into {n_slices} slices"
+            f"{len(devices)} devices do not split into {n_groups} groups"
         )
-    per_slice = len(devices) // n_slices
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_hybrid_device_mesh(
-            (1, per_slice), (n_slices, 1), devices=devices
-        )
-    except (ValueError, AttributeError, ImportError):
-        arr = np.asarray(devices).reshape(n_slices, per_slice)
+    arr = np.asarray(devices).reshape(n_groups, len(devices) // n_groups)
     return Mesh(arr, axes)
 
 

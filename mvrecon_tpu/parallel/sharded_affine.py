@@ -9,7 +9,7 @@ W's leading rank-3 left subspace and the per-point right-factor rows:
 
 - U3 (2F, 3) comes *exactly* from an eigh of the (2F, 2F) Gram
   G = W W^T = sum_p w_p w_p^T: each device contributes its local
-  (2F, Pl)(Pl, 2F) matmul (MXU work) and one psum of 4F^2 floats
+  (2F, Pl)(Pl, 2F) matmul and one psum of 4F^2 floats
   replaces the all-to-all a distributed SVD would need;
 - the centroids t (F, 2) are one tiny psum of per-image sums;
 - the metric upgrade (fourth-moment B_cal, 6x6 eigenproblem, Cholesky,

@@ -1,7 +1,7 @@
 """Point-sharded bundle adjustment (SPMD over a device mesh).
 
 The reference is single-process NumPy (SURVEY.md §2, items 12-13: no
-distributed anything); this module is the TPU-native scale-out story for
+distributed anything); this module is the scale-out story for
 *one huge scene*:
 
 - the P (points) dimension of observations, 3D points, visibility, and all
@@ -283,13 +283,13 @@ def sharded_bundle_adjust(
                 axis_name=POINTS_AXIS, init_c=c_seg, dist=dist,
             )
             n_total = n_total + n_seg
-        final, e, _, _, n_iter, _ = lm_optimize(
+        final, e, _, _, n_iter, log = lm_optimize(
             x_l, st0, vis_l, free_r, f0, config, axis_name=POINTS_AXIS,
             init_c=c_seg, dist=dist,
         )
         dist_out = dist if model_dist else dist_r
         return (final.X, final.f, final.u, final.t, final.R, e,
-                n_iter + n_total, dist_out)
+                n_iter + n_total, log["n_solver_retries"], dist_out)
 
     pt = P(POINTS_AXIS)
     rep = P()
@@ -297,10 +297,10 @@ def sharded_bundle_adjust(
         run,
         mesh=mesh,
         in_specs=(pt, pt, rep, rep, rep, rep, pt, rep, rep),
-        out_specs=(pt, rep, rep, rep, rep, rep, rep, rep),
+        out_specs=(pt, rep, rep, rep, rep, rep, rep, rep, rep),
     )
     f_in, u_in = intrinsics_from_K(init_K, f0)
-    Xf, ff, uf, tf, Rf, e, n_iter, dist_f = sharded(
+    Xf, ff, uf, tf, Rf, e, n_iter, n_retries, dist_f = sharded(
         x_p, X0, f_in, u_in, t0, R0, vis_p, free, dist0
     )
 
@@ -312,6 +312,6 @@ def sharded_bundle_adjust(
         t=tg,
         error=e,
         n_iter=n_iter,
-        log=None,
+        log={"n_solver_retries": n_retries},
         distortion=dist_f if model_dist else None,
     )

@@ -1,13 +1,13 @@
 """Point-sharded perspective self-calibration (SPMD over a device mesh).
 
 Round 1 left the calibration stage single-device (the global SVD of the
-scaled observation matrix W (3F, P) was the blocker). The TPU-native
+scaled observation matrix W (3F, P) was the blocker). The
 resolution: the depth loops never need the SVD itself — only W's leading
 rank-4 subspace and a handful of scalar statistics. With P sharded,
 
 - U4 (3F, 4) comes *exactly* from an eigh of the (3F, 3F) Gram
   G = W W^T = sum_p w_p w_p^T: each device contributes its local
-  (3F, Pl) (Pl, 3F) matmul (MXU work) and a single psum of 9F^2 floats
+  (3F, Pl) (Pl, 3F) matmul and a single psum of 9F^2 floats
   replaces the all-to-all an actual distributed SVD would need;
 - the right factor rows stay local: V4_local = W_local^T U4 / sigma4;
 - everything per-point (depth eigenproblems via the rank-4/rank-12
@@ -134,7 +134,7 @@ def _depth_step_dual_sharded(xh_l, z_l, f0, n_total, axis_name):
         # Above the HBM budget the (F, Pl, 12) Khatri-Rao factor is never
         # materialized: per-image 12x12 Grams accumulate over point chunks
         # (models.perspective._kr_gram — one-shot it is 4.47 GB at the
-        # 100k x 1000 north star, the measured v5e overflow), then psum.
+        # 100k x 1000 north star), then psum.
         # The threshold split mirrors _depth_step_dual's (and its caution
         # note on eigensolver sign sensitivity).
         gram = _psum(_kr_gram(v4_l, xn), axis_name)

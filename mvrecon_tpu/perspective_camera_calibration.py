@@ -4,7 +4,7 @@ API parity with ``lib/perspective_camera_calibration.py``: the public
 ``perspective_self_calibration(x_list, f0, tol, method)`` returns
 (X, R, t, K) like the reference (``:513-540``); convergence status is
 available via ``perspective_self_calibration_full`` which also returns the
-depth-loop diagnostics (the TPU-native core reports failure as a status
+depth-loop diagnostics (the jitted core reports failure as a status
 flag instead of raising inside the graph).
 """
 

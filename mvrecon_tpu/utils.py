@@ -1,7 +1,7 @@
 """Reference-compatible ``utils`` module (API parity with ``lib/utils.py``).
 
 The samplers keep the reference's *signatures* (global-seed style) for
-drop-in use; the TPU-native explicit-key versions live in
+drop-in use; the explicit-key (jax.random) versions live in
 ``geometry/scenes.py``. Here randomness uses NumPy's global RNG exactly like
 the reference so existing user code behaves identically, then converts to
 JAX arrays.

@@ -1,4 +1,4 @@
-"""BAL-style ragged-visibility proof point (VERDICT r2 next-step #8).
+"""BAL-style ragged-visibility proof point.
 
 Generates a realistic sparse-track bundle-adjustment problem in the
 standard BAL text format (Agarwal et al., ECCV 2010) — sliding-window
@@ -14,12 +14,14 @@ Usage: python scripts/bench_bal.py [n_points] [n_cams] [vis_frac]
 ``distort 1`` renders through a shared BAL radial (k1, k2) = (-0.3,
 0.05) and recovers it from zero with the tied closed-form refit
 (distortion_rounds=2, full 9-parameter BAL camera). ``chunk_size > 0``
-runs the O(chunk)-memory core (the fused Pallas path on TPU f32).
-Writes/reads /tmp/mvrecon_bal_problem.txt; prints one JSON line.
+runs the O(chunk)-memory core. Writes/reads mvrecon_bal_problem.txt
+under the temporary directory; prints one JSON line.
 """
 
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,19 +40,31 @@ from mvrecon_tpu.geometry.camera import project_points
 from mvrecon_tpu.geometry.scenes import make_synthetic_scene
 from mvrecon_tpu.models.bundle_adjustment import bundle_adjust
 from mvrecon_tpu.ops.procrustes import aligned_rmse
-from mvrecon_tpu.runtime.io import load_bal, save_bal
+from mvrecon_tpu.runtime.io import load_bal, save_bal_sparse
 
-PATH = "/tmp/mvrecon_bal_problem.txt"
+PATH = os.path.join(tempfile.gettempdir(), "mvrecon_bal_problem.txt")
 
 
 K_TRUE = (-0.3, 0.05)  # shared radial distortion of the distorted variant
 
 
+def perturbed_init(X, t, seed=1):
+    """The solvers' start: ground-truth X and t plus 0.05 Gaussian noise
+    (BAL inits are noisy; ours is ground truth + noise)."""
+    rng = np.random.default_rng(seed)
+    return (X + 0.05 * rng.standard_normal(X.shape),
+            t + 0.05 * rng.standard_normal(t.shape))
+
+
 def make_problem(n_points, n_cams, vis_frac, outlier_frac, seed=0,
-                 distort=False):
+                 distort=False, path=PATH, perturbed=False):
     """Sequential-capture scene: window visibility + noise + outliers;
     with ``distort`` the observations render through a shared BAL radial
-    (k1, k2) (one physical camera), saved in the BAL file."""
+    (k1, k2) (one physical camera), saved in the BAL file. The file holds
+    the ground-truth X and t, or with ``perturbed`` the start of
+    :func:`perturbed_init`, for solvers that start from the file (the
+    CLI). Returns the ground-truth X and the inlier mask over the
+    point-sorted observations (the order of ``load_bal_sparse``)."""
     sc = make_synthetic_scene(
         jax.random.key(seed), n_images=n_cams, n_slices=n_points // 20,
         n_angles=20, noise=0.0, dtype=jnp.float64,
@@ -81,19 +95,22 @@ def make_problem(n_points, n_cams, vis_frac, outlier_frac, seed=0,
     lo = np.clip(centers - window // 2, 0, n_cams - window)
     cams = np.arange(n_cams)
     vis = ((cams[None, :] >= lo[:, None]) & (cams[None, :] < (lo + window)[:, None]))
-    vis = vis.astype(float)  # (P, F)
 
     x = x + 0.005 * rng.standard_normal(x.shape)  # pixel noise
-    n_out = int(outlier_frac * vis.sum())
-    pi, ci = np.nonzero(vis > 0)
+    pi, ci = np.nonzero(vis)  # point-sorted observations
+    n_out = int(outlier_frac * len(pi))
     pick = rng.choice(len(pi), n_out, replace=False)
     x[ci[pick], pi[pick]] += rng.standard_normal((n_out, 2)) * 0.5  # gross outliers
+    inlier = np.ones(len(pi), bool)
+    inlier[pick] = False
 
-    save_bal(
-        PATH, x, vis, np.asarray(sc.X), np.asarray(sc.R), np.asarray(sc.t),
+    X, t = np.asarray(sc.X), np.asarray(sc.t)
+    X_file, t_file = perturbed_init(X, t) if perturbed else (X, t)
+    save_bal_sparse(
+        path, pi, ci, x[ci, pi], n_points, X_file, np.asarray(sc.R), t_file,
         np.asarray(sc.K[:, 0, 0]), distortion=dist,
     )
-    return np.asarray(sc.X)
+    return X, inlier
 
 
 def main():
@@ -105,8 +122,8 @@ def main():
     distort = len(sys.argv) > 6 and sys.argv[6] == "1"
     chunk = int(sys.argv[7]) if len(sys.argv) > 7 else 0
 
-    X_gt = make_problem(n_points, n_cams, vis_frac, outlier_frac,
-                        distort=distort)
+    X_gt, _ = make_problem(n_points, n_cams, vis_frac, outlier_frac,
+                           distort=distort)
     d = load_bal(PATH)
     n_obs = int(d["visibility"].sum())
     print(
@@ -117,10 +134,7 @@ def main():
     dtype = jnp.float32
     x = jnp.asarray(d["x"].transpose(1, 0, 2), dtype)  # (P, F, 2)
     vis = jnp.asarray(d["visibility"], dtype)
-    # perturbed init (BAL inits are noisy; ours is GT + noise)
-    rng = np.random.default_rng(1)
-    X0 = jnp.asarray(d["X"] + 0.05 * rng.standard_normal(d["X"].shape), dtype)
-    t0 = jnp.asarray(d["t"] + 0.05 * rng.standard_normal(d["t"].shape), dtype)
+    X0, t0 = (jnp.asarray(v, dtype) for v in perturbed_init(d["X"], d["t"]))
     K0 = jnp.asarray(d["K"], dtype)
     R0 = jnp.asarray(d["R"], dtype)
 
@@ -150,7 +164,7 @@ def main():
             config=config, visibility=vis,
         )
         err = float(res.error)
-        np.asarray(jnp.ravel(res.X)[:4])
+        jax.block_until_ready(res)
         return res, err
 
     res, err = run()  # compile

@@ -1,4 +1,4 @@
-"""Experiment (VERDICT r4 #3): does a DLT re-triangulation of the points
+"""Experiment: does a DLT re-triangulation of the points
 between perspective self-calibration and BA cut the BA iterations needed
 to reach the noise floor?
 

@@ -1,4 +1,4 @@
-"""Retry-count sweep at the north star (VERDICT r3 #4).
+"""Retry-count sweep at the north star.
 
 The phase ledger (BASELINE.md) bounds what faster *builds* can give;
 the untried lever is the *number* of builds: 13 retries for 10 accepted
@@ -80,7 +80,7 @@ def main():
             )
             err = float(res.error)
             retries = int(res.log["n_solver_retries"])
-            np.asarray(jnp.ravel(res.X)[:4])
+            jax.block_until_ready(res)
             return err, retries
 
         run()  # compile + warm-up

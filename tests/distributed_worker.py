@@ -1,14 +1,14 @@
 """Worker process for test_distributed.py.
 
 Joins an N-process CPU rig via ``runtime.distributed.initialize`` (gloo
-collectives — the same program shape a multi-host TPU fleet runs), then:
+collectives — the same program shape a multi-host fleet runs), then:
 
 1. runs one point-sharded LM step over a GLOBAL ``points`` mesh whose
    psums cross the process boundary, and checks the result against
    single-device numerics computed locally (x64: exact up to psum
    reassociation);
 2. runs one step over the hybrid (scenes=processes, points=local) mesh —
-   scenes-DP across the process/DCN boundary, psums intra-process.
+   scenes-DP across the process boundary, psums intra-process.
 
 Prints WORKER-OK and exits 0 on success. Usage:
     python tests/distributed_worker.py PORT PROCESS_ID NUM_PROCESSES N_LOCAL
@@ -115,7 +115,7 @@ def main() -> None:
     )
     print(f"proc {pid}: cross-process distorted step OK", flush=True)
 
-    # --- 2. hybrid mesh: scenes axis == process axis (DCN analog) ---
+    # --- 2. hybrid mesh: scenes axis == process axis ---
     hmesh = process_scene_point_mesh()
     assert hmesh.shape == {"scenes": nproc, "points": n_local}
     # one scene per process, points sharded intra-process only

@@ -1,7 +1,7 @@
 """Independent correctness oracle: the analytic BA gradients (ported from
 Kanatani's formulas) must equal JAX autodiff of the error function.
 
-This is a TPU-framework-native test the reference cannot have: jax.grad of
+This is a framework-native test the reference cannot have: jax.grad of
 the reprojection error wrt points and camera parameters, compared against
 the hand-derived d_P / d_F used in the Schur solver."""
 

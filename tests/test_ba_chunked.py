@@ -94,7 +94,7 @@ def test_nielsen_damping_converges(ref, quiet):
 
 def test_jacobi_scaling_is_semantics_preserving():
     """LMConfig.jacobi_scaling diag-scales the camera solve (a retry-
-    count lever on TPU f32); in f64 it must be numerically inert."""
+    count lever in f32); in f64 it must be numerically inert."""
     import jax
     import jax.numpy as jnp
     import numpy as np

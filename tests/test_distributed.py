@@ -1,8 +1,8 @@
-"""Multi-process execution tests (VERDICT r2 missing #1): spawn real
+"""Multi-process execution tests: spawn real
 processes joined by ``runtime.distributed.initialize`` over the CPU
 backend (gloo collectives) and run sharded LM steps whose collectives
 cross the process boundary. This is the same program shape a multi-host
-TPU fleet runs — only the transport differs (gloo here, ICI/DCN there).
+fleet runs — only the transport differs (gloo here, NCCL on GPUs).
 
 The in-process tests below cover the host-side helpers; the spawned
 workers (``distributed_worker.py``) cover initialize/mesh/feeding/gather

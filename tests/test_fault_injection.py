@@ -298,7 +298,7 @@ xj = scene.x.transpose(1, 0, 2)
 cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=99)
 
 if wedge:
-    # simulate a device tunnel that wedges after the first segment: the
+    # simulate a device link that wedges after the first segment: the
     # second bundle_adjust_chunked call never returns. The watchdog is
     # armed *at the wedge* so legitimate first-segment compile time
     # (arbitrarily slow under CI load) cannot race the deadline.

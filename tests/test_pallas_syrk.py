@@ -25,7 +25,7 @@ def test_syrk_interpret_unaligned_shapes():
 
 
 def test_syrk_interpret_bf16_inputs():
-    """bf16 inputs accumulate in f32 (the DEFAULT-precision TPU path)."""
+    """bf16 inputs accumulate in f32."""
     rng = np.random.default_rng(2)
     y = rng.normal(size=(256, 384)).astype(np.float32)
     got = np.asarray(

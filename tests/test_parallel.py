@@ -31,17 +31,17 @@ def test_mesh_helpers():
 
 
 def test_hybrid_mesh_shape_and_fallback():
-    """On devices with no slice structure (CPU) the hybrid helper groups
-    row-major; shape and axis names match the multi-slice TPU layout."""
+    """The hybrid helper groups devices row-major into (scenes, points);
+    a device count that does not split into the groups is refused."""
     mesh = hybrid_scene_point_mesh(2)
     assert mesh.shape == {"scenes": 2, "points": 4}
-    with pytest.raises(ValueError, match="slices"):
+    with pytest.raises(ValueError, match="groups"):
         hybrid_scene_point_mesh(3)
 
 
 def test_hybrid_mesh_point_sharded_ba(ba_problem):
     """Point-sharded BA on the 2-slice hybrid mesh (scenes axis idle /
-    replicated — the DCN axis carries no optimization traffic) must match
+    replicated — the inter-group axis carries no optimization traffic) must match
     single-device BA, like the 1D-mesh test above."""
     x, X_, K_, R_, t_ = ba_problem
     config = LMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=6)

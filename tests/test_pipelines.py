@@ -38,7 +38,7 @@ def test_affine_pipeline_e2e():
 
 
 def test_euclidean_pipeline_float32():
-    """The TPU fast path (f32) must still reconstruct to near the noise
+    """The fast path (f32) must still reconstruct to near the noise
     floor."""
     scene = make_synthetic_scene(jax.random.key(3), n_images=10, dtype=jnp.float32)
     res = euclidean_reconstruction(
@@ -83,13 +83,14 @@ def test_pipeline_records_ba_log_for_animation():
     assert records[0]["points"].shape == (x.shape[1], 3)
 
     # default config keeps the result trajectory-free (no memory cost):
-    # only the O(1) damping carry (c, nu) remains, which the batched
-    # to-convergence compaction resumes from
+    # only O(1) scalars remain — the damping carry (c, nu), which the
+    # batched to-convergence compaction resumes from, and the retry count
     res2 = euclidean_reconstruction(
         x, f0=1.0, tol=1e-2, method="dual",
         config=LMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=4),
     )
-    assert set(res2.ba_log) == {"c", "nu"}
+    assert set(res2.ba_log) == {"c", "nu", "n_solver_retries"}
+    assert np.asarray(res2.ba_log["n_solver_retries"]).shape == ()
     assert np.asarray(res2.ba_log["c"]).shape == ()
 
 
